@@ -3,7 +3,7 @@ equivalent).
 
 The reference ships a Qt Quick/QML frontend whose view-models poll
 app_control snapshots and enqueue commands (src/ui/qt/,
-docs/code_map.md:240-252).  The TPU rebuild has no Android/Qt surface;
+docs/code_map.md:240-252).  The batched rebuild has no Android/Qt surface;
 the idiomatic graphical frontend here is a browser dashboard speaking
 the same two primitives — poll ``MetricsHub.snapshot()``, enqueue into
 ``CommandQueue``:

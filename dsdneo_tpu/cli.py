@@ -20,7 +20,7 @@ from dsdneo_tpu.engine.modes import FLAG_TO_MODE
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dsd-neo-tpu", add_help=True,
-                                description="TPU-native digital speech decoder")
+                                description="batched digital speech decoder")
     p.add_argument("--iq-replay", metavar="FILE",
                    help="replay an I/Q capture (.iq or .iq.json sidecar)")
     p.add_argument("--http-port", type=int, default=8173,
@@ -43,10 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cqpsk", action="store_true",
                    help="use the CQPSK/LSM carrier+timing chain instead of "
                         "the FM discriminator path")
-    p.add_argument("--platform", default="cpu", choices=["cpu", "tpu", "default"],
-                   help="JAX platform for the DSP pipeline (single-channel "
-                        "offline decode defaults to host CPU; the batched "
-                        "many-channel serving path targets TPU)")
+    p.add_argument("--platform", default=None,
+                   choices=["cpu", "gpu", "default"],
+                   help="JAX platform for the DSP pipeline (default: the "
+                        "single-channel decode runs on the host CPU; "
+                        "--fleet, --trunk-wideband and --wideband run on "
+                        "JAX's default device)")
     # decode mode flags (reference-compatible: -f1 -fs -fi ...)
     for flag, mode in FLAG_TO_MODE.items():
         p.add_argument(flag, dest="mode", action="store_const", const=mode,
@@ -101,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                    nargs="?", const=0,
                    help="channelize a wideband capture into N_CH 48 kHz "
                         "channels (0/omitted value = infer from the capture "
-                        "rate) and decode every active channel; the TPU "
+                        "rate) and decode every active channel; the "
                         "whole-band answer to the reference's tuner "
                         "time-sharing (src/engine/trunk_scan.c)")
     p.add_argument("--stream", type=float, default=0.0, metavar="SECONDS",
@@ -305,7 +307,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "of mode:kind:count groups (kind voice|cc), "
                         "e.g. 'p25p1:voice:8,p25p1:cc:2' — every "
                         "channel carries the replayed capture; events "
-                        "and PCM stats print per group (the TPU "
+                        "and PCM stats print per group (the batched "
                         "many-channel serving path)")
     p.add_argument("--trunk-wideband", default="", metavar="SPEC",
                    help="closed-loop trunking over a wideband replay: "
@@ -1105,6 +1107,38 @@ def _prescan_argv(argv: list[str]) -> list[str]:
     return out
 
 
+def _select_platform(args) -> str | None:
+    """Pin JAX to ``--platform``; returns an error message when the
+    requested platform has no device.
+
+    Without ``--platform`` the batched paths (--fleet, --trunk-wideband,
+    --wideband) run on JAX's default device, with the persistent
+    compile cache on, and the serial single-channel path on the host
+    CPU."""
+    import jax
+
+    batched = bool(args.fleet or args.trunk_wideband or args.wideband >= 0)
+    want = args.platform or ("default" if batched else "cpu")
+    if want != "default":
+        # a no-op once JAX has initialised its backends (embedders)
+        jax.config.update("jax_platforms", "cuda" if want == "gpu" else want)
+    if batched and jax.default_backend() != "cpu":
+        # accelerator compiles of the batched programs take seconds to
+        # minutes; CPU runs (tests, rehearsals) keep no cache
+        from dsdneo_tpu.runtime.jaxcache import enable_compile_cache
+        enable_compile_cache()
+    if want == "gpu":
+        try:
+            found = jax.devices()[0].platform
+        except (RuntimeError, AssertionError) as e:
+            # no backend initialises (JAX asserts when the named
+            # platform was the only one asked for)
+            found = f"none ({type(e).__name__}: {e})"
+        if found != "gpu":
+            return f"--platform gpu: JAX sees no GPU (default device: {found})"
+    return None
+
+
 def main(argv: list[str] | None = None) -> int:
     import sys as _sys
     args = build_parser().parse_args(
@@ -1207,9 +1241,10 @@ def main(argv: list[str] | None = None) -> int:
     if getattr(args, "tx_mode", None):
         return _run_m17_tx(args)
     if args.mbe_in:
-        import jax
-        if args.platform != "default":
-            jax.config.update("jax_platforms", args.platform)
+        err = _select_platform(args)
+        if err:
+            print(f"dsd-neo-tpu: {err}", file=sys.stderr)
+            return 2
         from dsdneo_tpu.io.mbe_files import read_mbe_file, synthesize_mbe_file
         files = args.mbe_play or [args.mbe_in]
         pcms = []
@@ -1260,9 +1295,10 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
 
-    if args.platform != "default":
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+    err = _select_platform(args)
+    if err:
+        print(f"dsd-neo-tpu: {err}", file=sys.stderr)
+        return 2
 
     from dsdneo_tpu.runtime import config as rtcfg
     cfg = rtcfg.RuntimeConfig()
@@ -1492,6 +1528,9 @@ def main(argv: list[str] | None = None) -> int:
                     p2 = fleet.p2_pcm[2 * row + slot]
                     if np.abs(p2).mean() > 1e-4:
                         sink.write(slot, p2)
+        for row, call in sorted(fleet.calls.items()):
+            print(f"trunk-wideband: active call TG {call.tg} row {row}: "
+                  f"{call.pcm_samples} voice samples", file=sys.stderr)
         s = fleet.stats
         print(f"trunk-wideband: {s.grants} grants, "
               f"{s.grant_refreshes} refreshes, {s.releases} releases, "
@@ -1531,10 +1570,14 @@ def main(argv: list[str] | None = None) -> int:
         fleet.decode_block(block)
         for g in fleet.groups:
             if g.kind == "voice":
-                secs = (g.pcm.shape[1] / 8000.0 if g.pcm is not None
-                        else 0.0)
+                pcm = g.pcm if g.pcm is not None else np.zeros((g.count, 0))
+                secs = pcm.shape[1] / 8000.0
+                live = int((np.abs(pcm).max(axis=1, initial=0.0)
+                            > 1e-4).sum())
                 print(f"group {g.mode}/voice x{g.count}: "
-                      f"{secs:.2f} s audio per channel", file=sys.stderr)
+                      f"{secs:.2f} s audio per channel, "
+                      f"{live}/{pcm.shape[0]} rows with audio",
+                      file=sys.stderr)
             else:
                 n_ev = sum(len(g.pipeline.events(i))
                            for i in range(g.count))

@@ -11,7 +11,7 @@ by call epoch, revision-counted incremental telemetry snapshots, and
 history reset) plus include/dsd-neo/runtime/call_alert.h (event-mask
 normalization: a zero mask means "all events").
 
-The TPU rebuild keeps the same *contracts* in plain Python: the decode
+The batched rebuild keeps the same *contracts* in plain Python: the decode
 path is batch-functional, so this layer is small host bookkeeping that
 the engine/UI threads share — no per-sample work lives here.
 """

@@ -5,12 +5,12 @@ capture (e.g. 3.2 MHz ≈ 256 × 12.5 kHz) splits into N critically-sampled
 channels in a single device program —
 
     polyphase decompose [B] → [B/N, N] → per-branch FIR (a depthwise
-    conv, MXU-eligible) → IFFT across the branch axis → [N, B/N]
+    conv) → IFFT across the branch axis → [N, B/N]
     complex basebands,
 
 which then feed the batched demod step (engine.batched.frontend_step).
 The reference instead time-shares ONE tuner over channels
-(src/engine/trunk_scan.c); the channelizer is where the TPU build
+(src/engine/trunk_scan.c); the channelizer is where the batched build
 fundamentally outruns it.
 """
 
@@ -60,9 +60,8 @@ def channelize(x: jax.Array, n_ch: int, taps_per_branch: int = 8,
     xpad = jnp.concatenate([pad, xp], axis=-2)         # [m+P-1, n_ch]
     y = jnp.zeros_like(xp)
     for p in range(P):
-        # static slice (p, m are trace-time ints): a jnp.arange gather
-        # here keeps the headline hot path off the fast TPU slice/conv
-        # units for no reason
+        # static slice (p, m are trace-time ints), not a jnp.arange
+        # gather: XLA fuses slices into the multiply-add
         y = y + xpad[..., P - 1 - p:P - 1 - p + m, :] * hp[p][None, :]
     # DFT across branches → channels (forward FFT aligns channel k with
     # center +k·fs/N for the x[mN+i] branch convention)

@@ -1,4 +1,4 @@
-"""CQPSK/LSM (π/4-DQPSK) demodulation — feed-forward TPU design.
+"""CQPSK/LSM (π/4-DQPSK) demodulation — feed-forward batched design.
 
 The reference's chain is a cascade of per-sample feedback loops
 (src/dsp/costas.cpp: AGC → FLL band-edge → Gardner TED → differential

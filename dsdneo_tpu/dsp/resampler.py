@@ -4,9 +4,9 @@ Reference parity: src/dsp/resampler.cpp (polyphase plan held in
 demod_state.h:166-183, used to pin audio output at 48 kHz when the
 device forces an awkward capture rate).
 
-TPU design: the output at rate L/M is a gather of phase-selected FIR
-dot products — expressed as a dense [K, taps_per_phase] window matrix
-times the filter bank, which XLA maps onto the MXU for large K.
+Batched design: the output at rate L/M is a gather of phase-selected
+FIR dot products — expressed as a dense [K, taps_per_phase] window
+matrix times the filter bank, one matmul for large K.
 """
 
 from __future__ import annotations

@@ -170,10 +170,10 @@ class BatchedDstarPipeline:
         self._jits = {}
 
     # -- front end: gated demod + clipped per-pattern correlation ----------
-    def frontend_sync_device(self, iq, use_pallas: bool | None = None):
-        return self.frontend_finish(self.frontend_dispatch(iq, use_pallas))
+    def frontend_sync_device(self, iq):
+        return self.frontend_finish(self.frontend_dispatch(iq))
 
-    def frontend_dispatch(self, iq, use_pallas: bool | None = None):
+    def frontend_dispatch(self, iq):
         from dsdneo_tpu.engine.demod import gated_frontend_step
         B = iq.shape[1]
         n_sym = int(B // self.sps) - 2

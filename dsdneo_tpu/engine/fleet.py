@@ -2,7 +2,7 @@
 protocols — the production composition of the batched pipelines.
 
 The reference runs one process per monitored channel (SURVEY.md §2.8);
-this is the TPU answer: a FleetMonitor owns groups of channels, each
+this is the batched answer: a FleetMonitor owns groups of channels, each
 group bound to one batched pipeline (voice or control), slices every
 pushed [C_total, B] block into per-group sub-batches, and runs each
 group's device program.  Voice groups return per-channel PCM; control
@@ -117,7 +117,7 @@ class FleetMonitor:
         of later groups — and dispatches the second-stage device
         program (voice gather/synthesis) or parses control events;
         phase 3 fetches voice PCM last, after every device program is
-        in flight.  Tunnel round trips therefore overlap device
+        in flight.  Host-device exchanges therefore overlap device
         compute instead of re-serializing at fleet scale."""
         assert iq.shape[0] == self.total_channels, (
             f"block carries {iq.shape[0]} channels, fleet has "

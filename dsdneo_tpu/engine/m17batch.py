@@ -8,7 +8,7 @@ voice128), reference src/protocol/m17/m17.c m17processHDU/STR and
 m17_algorithms.c (rebuilt serially in protocol/m17/decoder.py).  Every
 stage is static gather/XOR arithmetic plus two batched decoders the
 device FEC library already provides: ``ml_decode_batch`` over the 4096-
-word Golay codebook (one MXU matmul) and the lane-major K=5 Viterbi
+word Golay codebook (one matmul) and the lane-major K=5 Viterbi
 ``conv_k5_decode_batch``.
 
 Unlike the IMBE/AMBE families there is no device synthesizer: M17
@@ -142,10 +142,10 @@ class BatchedM17VoicePipeline:
 
     # -- front end (shared shape with ysfbatch: gated demod + clipped
     # correlation; M17 transmissions burst with dead-air gaps) -------------
-    def frontend_sync_device(self, iq, use_pallas: bool | None = None):
-        return self.frontend_finish(self.frontend_dispatch(iq, use_pallas))
+    def frontend_sync_device(self, iq):
+        return self.frontend_finish(self.frontend_dispatch(iq))
 
-    def frontend_dispatch(self, iq, use_pallas: bool | None = None):
+    def frontend_dispatch(self, iq):
         from dsdneo_tpu.engine.demod import gated_frontend_step
         B = iq.shape[1]
         n_sym = int(B // self.sps) - 2

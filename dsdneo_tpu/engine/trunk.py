@@ -7,7 +7,7 @@ and the DMR Tier III equivalent (src/protocol/dmr/dmr_trunk_sm.c).
 
 The "tuner" is an abstraction: in the single-tuner live path it issues
 retunes (the reference's rtl_stream async tagged tune); in the batched
-TPU path a retune is a per-channel NCO/config row rewrite between device
+device path a retune is a per-channel NCO/config row rewrite between device
 steps — no recompilation, just data.
 """
 

@@ -102,7 +102,7 @@ class BatchedX2VoicePipeline(BatchedDmrVoicePipeline):
         self.sps = fs / self.mode.symbol_rate
         self.taps = firdes.channel_lpf(fs, self.mode.lpf_profile)
 
-    def frontend_sync_device(self, iq, use_pallas: bool | None = None):
+    def frontend_sync_device(self, iq):
         """The DMR fused dispatch computes a QR EMB-confidence column
         that X2's embedded signalling does not satisfy; this variant
         runs the same front end + correlation and returns a zero
@@ -113,9 +113,7 @@ class BatchedX2VoicePipeline(BatchedDmrVoicePipeline):
         from dsdneo_tpu.engine.voicebatch import correlate_syncs_device
         B = iq.shape[1]
         n_sym = int(B // self.sps) - 2
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        key = ("x2", B, n_sym, use_pallas)
+        key = ("x2", B, n_sym)
         if not hasattr(self, "_jits"):
             self._jits = {}
         fn = self._jits.get(key)
@@ -128,8 +126,7 @@ class BatchedX2VoicePipeline(BatchedDmrVoicePipeline):
             @jax.jit
             def fn(x):
                 dibits, soft, _power = frontend_step(
-                    x, taps, self.sps, n_sym, self.mode.four_level,
-                    use_pallas=use_pallas)
+                    x, taps, self.sps, n_sym, self.mode.four_level)
                 sc = correlate_syncs_device(soft, names)
                 best_def = jnp.argmax(sc, axis=1).astype(jnp.uint8)
                 bs = jnp.max(sc, axis=1)
@@ -145,18 +142,16 @@ class BatchedX2VoicePipeline(BatchedDmrVoicePipeline):
             iq if isinstance(iq, jnp.ndarray) else jnp.asarray(iq))
         return self.frontend_finish((dibits_dev, blob_dev, n_sym))
 
-    def frontend_dispatch(self, iq, use_pallas: bool | None = None):
+    def frontend_dispatch(self, iq):
         """X2 override of the deep-pipelining dispatch (own jit key +
         blob layout; see voicebatch.frontend_dispatch)."""
         import jax
         B = iq.shape[1]
         n_sym = int(B // self.sps) - 2
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        key = ("x2", B, n_sym, use_pallas)
+        key = ("x2", B, n_sym)
         fn = self._jits.get(key) if hasattr(self, "_jits") else None
         if fn is None:
-            self.frontend_sync_device(iq, use_pallas)   # compile once
+            self.frontend_sync_device(iq)   # compile once
             fn = self._jits[key]
         dibits_dev, blob_dev = fn(
             iq if isinstance(iq, jnp.ndarray) else jnp.asarray(iq))

@@ -1,9 +1,9 @@
 """Binary block codes as soft-decision maximum-likelihood codebook decoders.
 
-TPU-first stance: every short block code used by the LMR protocols
+Batch-first stance: every short block code used by the LMR protocols
 (BCH(63,16), Golay(24,12)/(20,8), Hamming family, QR(16,7,6)) has ≤ 2^16
 codewords, so optimal decoding is a correlation against the full
-codebook — one matmul on the MXU for a batch of received words, and
+codebook — one matmul for a batch of received words, and
 exact soft-decision ML (strictly stronger than the reference's
 syndrome-table decoders in src/fec/fec.c and the algebraic decoders in
 include/dsd-neo/fec/BCH_63_16.hpp / Golay24.hpp).

@@ -1,11 +1,11 @@
 """Device-side (JAX/XLA) batched FEC kernels.
 
-The TPU-first counterparts of the host decoders in
+The batched device counterparts of the host decoders in
 :mod:`dsdneo_tpu.fec.blockcodes` / :mod:`dsdneo_tpu.fec.trellis` /
 :mod:`dsdneo_tpu.fec.rs`, built on the SAME codebooks and tables so the
 two paths are bit-identical (asserted in tests/test_fec_device.py):
 
-- **Codebook ML decode as one MXU matmul**: a batch of soft words
+- **Codebook ML decode as one matmul**: a batch of soft words
   ``[N, n]`` correlates against the ±1 codebook ``[M, n]`` —
   exact soft-decision ML for every short block code the LMR protocols
   use (reference equivalents: src/fec/fec.c syndrome tables,
@@ -49,9 +49,10 @@ def ml_decode_batch(code: blockcodes.MLBlockCode, bits: jax.Array,
     s = 1.0 - 2.0 * bits.astype(jnp.float32)
     if reliab is not None:
         s = s * (reliab.astype(jnp.float32) + 1e-3)  # host-identical weights
-    # HIGHEST: the TPU default (bf16 passes) is exact for hard ±1 sums
-    # but quantizes away the +1e-3 reliability tie-break epsilon on
-    # the soft path, breaking the documented host bit-identity
+    # HIGHEST: a reduced-precision float32 matmul (TF32 on the GPU)
+    # is exact for hard ±1 sums but quantizes away the +1e-3
+    # reliability tie-break epsilon on the soft path, breaking the
+    # documented host bit-identity
     scores = jnp.matmul(s, pm.T,
                         precision=jax.lax.Precision.HIGHEST)  # [..., M]
     m = jnp.argmax(scores, axis=-1)
@@ -110,10 +111,9 @@ def p25_12_decode_batch(bits196: jax.Array, llr196: jax.Array | None = None
     trellis.p25_12_decode (strict-less updates keep the lowest prev
     state on ties, matching numpy argmin).
 
-    Layout: the batch axis N rides the TPU lane dimension ([4, N] /
+    Layout: the batch axis N is the minor dimension ([4, N] /
     [16, N] tensors), and the 4-state min/argmin is a fully unrolled
-    chain of elementwise selects — at fleet scale (25k blocks per CC
-    step) this runs ~9× faster than the [N, 4] gather/argmin form."""
+    chain of elementwise selects instead of an [N, 4] gather/argmin."""
     deperm, expect, nibbles = _p25_trellis_consts()
     if llr196 is None:
         llr196 = (1 - 2 * bits196.astype(jnp.int32)) * 64
@@ -179,7 +179,7 @@ def conv_k5_decode_batch(sym: jax.Array, wt: jax.Array) -> jax.Array:
     (flush bits included; callers slice).  Identical lattice and
     tie-breaking to the host fec.conv.decode_soft (strict-less keeps
     the t>>1 predecessor on ties).  Lane-major like
-    p25_12_decode_batch: the batch axis N rides the TPU lanes."""
+    p25_12_decode_batch: the batch axis N is the minor dimension."""
     from dsdneo_tpu.fec.conv import _O1, _O2
     n = sym.shape[1] // 2
     s0 = jnp.transpose(sym[:, 0::2].astype(jnp.float32))     # [n, N]
@@ -233,7 +233,7 @@ def conv_k3_decode_batch(bits: jax.Array) -> jax.Array:
     protocol/dstar/decoder._viterbi_k3): [N, 2n] → [N, n] info bits.
     Identical lattice and tie-breaks (``<=`` keeps the ``ns>>1``
     predecessor; the end state is the first metric argmin, matching
-    np.argmin).  Lane-major: the batch axis N rides the TPU lanes."""
+    np.argmin).  Lane-major: the batch axis N is the minor dimension."""
     n = bits.shape[1] // 2
     s1 = jnp.transpose(bits[:, 0::2].astype(jnp.float32))   # [n, N]
     s0 = jnp.transpose(bits[:, 1::2].astype(jnp.float32))
@@ -321,7 +321,7 @@ def _ml_golay_dec(words, pm, cb):
     """Shared ML Golay(23,12) correlate-and-count used by all three
     voice-frame ECC kernels (IMBE, DMR AMBE, D-STAR AMBE): [F, 23]
     hard bits -> (message index, bit error count).  HIGHEST precision
-    keeps the +-1 correlation exact on TPU (see ml_decode_batch)."""
+    keeps the +-1 correlation in full float32 (see ml_decode_batch)."""
     s = 1.0 - 2.0 * words.astype(jnp.float32)
     m = jnp.argmax(jnp.matmul(s, pm.T,
                               precision=jax.lax.Precision.HIGHEST),
@@ -415,7 +415,9 @@ def _imbe_ecc_jit():
             w = fr[:, row, :15] ^ pnb[:, pos:pos + 15][:, ::-1]
             pos += 15
             s = 1.0 - 2.0 * w.astype(jnp.float32)
-            m = jnp.argmax(s @ pm_h.T, axis=-1)
+            m = jnp.argmax(jnp.matmul(s, pm_h.T,
+                                      precision=jax.lax.Precision.HIGHEST),
+                           axis=-1)
             e = jnp.sum(cb_h[m] != w, axis=-1)
             errs += e.astype(jnp.int32)
             out = out.at[:, k:k + 11].set(ph[m])

@@ -1,3 +1,1 @@
-from dsdneo_tpu.ops import pallas_frontend
-
-__all__ = ["pallas_frontend"]
+"""Device-side helpers shared by the batched pipelines (PCM wire codecs)."""

@@ -187,6 +187,71 @@ def random_voice_ldus(n_ldus: int, seed: int = 0) -> np.ndarray:
     return out
 
 
+def voice_capture(seconds: float = 3.0, fs: float = 48000.0,
+                  nac: int = 0x293, seed: int = 0) -> np.ndarray:
+    """Seeded P25 Phase 1 C4FM voice capture: back-to-back LDU1/LDU2
+    frames whose IMBE voice frames pass through the real quantizer and
+    ECC encoders, as ``int(seconds * fs)`` complex64 samples."""
+    rng = np.random.default_rng(seed)
+    sps = int(round(fs / 4800.0))
+    ldu_s = 864 / 4800.0                     # one LDU is 864 dibits
+    n_ldus = int(np.ceil(seconds / ldu_s)) + 1
+    ldus = random_voice_ldus(n_ldus, seed=seed)
+    dib = [rng.integers(0, 4, 30).astype(np.uint8)]
+    for i, ldu in enumerate(ldus):
+        dib.append(ldu_frame(nac, ldu, duid=5 if i % 2 == 0 else 10,
+                             seed=seed + i))
+    x = c4fm_iq(np.concatenate(dib), sps=sps, fs=fs, seed=seed + 1)
+    return x[:int(seconds * fs)]
+
+
+# band layout of :func:`trunked_band` (a 16-channel 768 kHz raster)
+BAND_FS = 768000.0
+BAND_CENTER_HZ = 851_000_000.0
+BAND_CC_OFF = -96_000          # control channel at 850.904 MHz
+BAND_VC_OFF = 150_000          # granted voice channel at 851.150 MHz
+BAND_TG = 101
+
+
+def trunked_band(seconds: float = 2.0, seed: int = 0,
+                 tg: int = BAND_TG) -> np.ndarray:
+    """Seeded wideband P25 site at ``BAND_FS``: a control channel that
+    repeats an iden (6.25 kHz raster), a group voice grant of ``tg``
+    on the voice channel and a network status broadcast,
+    plus LDU voice on that channel.  Returns complex64 samples scaled
+    to a peak magnitude of 1 (ready for a CU8 capture)."""
+    rng = np.random.default_rng(seed)
+    sps = int(BAND_FS / 4800)
+    nac = 0x293
+    grant_ch = (1 << 12) | 24                # iden 1, channel 24
+    netstat = tsbk_bytes(0x3B, [0, 0x92, 0x06, 0x50, 0xD5, 0, 0, 0],
+                         lb=True)
+    iden = iden_up_tsbk(1, BAND_CENTER_HZ, 6250.0)
+    frame = tsdu_frame(nac, [iden, group_grant_tsbk(grant_ch, tg=tg,
+                                                    src=5555), netstat])
+    need = int(seconds * 4800)
+    cc_dib, total = [rng.integers(0, 4, 60).astype(np.uint8)], 60
+    while total < need:
+        cc_dib.append(frame)
+        cc_dib.append(rng.integers(0, 4, 24).astype(np.uint8))
+        total += len(frame) + 24
+    cc = c4fm_iq(np.concatenate(cc_dib)[:need], sps=sps, fs=BAND_FS,
+                 seed=seed + 1)
+    ldus = random_voice_ldus(int(seconds / 0.185) + 1, seed=seed + 3)
+    vc_dib = [rng.integers(0, 4, 30).astype(np.uint8)]
+    for i, ldu in enumerate(ldus):
+        vc_dib.append(ldu_frame(nac, ldu, duid=5 if i % 2 == 0 else 10,
+                                seed=seed + i))
+    vc = c4fm_iq(np.concatenate(vc_dib), sps=sps, fs=BAND_FS, seed=seed + 2)
+    n = int(seconds * BAND_FS)
+    t = np.arange(n, dtype=np.float64) / BAND_FS
+    wide = np.zeros(n, dtype=np.complex128)
+    for x, off in ((cc, BAND_CC_OFF), (vc, BAND_VC_OFF)):
+        m = min(len(x), n)
+        wide[:m] += x[:m] * np.exp(2j * np.pi * off * t[:m])
+    return (wide / (np.abs(wide).max() or 1.0)).astype(np.complex64)
+
+
 # -- P25 Phase 2 TDMA control channel ----------------------------------------
 def p2_mac_payload(header: int, messages: list[list[int]],
                    kind: str = "sacch") -> np.ndarray:
@@ -304,3 +369,33 @@ def p2_cc_superframes(n_superframes: int, wacn: int, sysid: int,
                 dibs.append(((ts[0::2] << 1) | ts[1::2]).astype(np.uint8))
     dibs.append(np.zeros(60, np.uint8))
     return np.concatenate(dibs)
+
+
+def p2_cc_iq(n_sf: int = 3, msgs=None, wacn: int = 0xBEE00,
+             sysid: int = 0x14C, nac: int = 0x293,
+             seed: int = 0) -> np.ndarray:
+    """P25 Phase 2 LCCH superframes (:func:`p2_cc_superframes`) as
+    6000 sym/s H-DQPSK-style 4FSK baseband at 48 kHz, 30 dB SNR."""
+    dib = p2_cc_superframes(n_sf, wacn, sysid, nac, msgs)
+    sps = 8
+    lv = np.array([1.0, 3.0, -1.0, -3.0])[dib]
+    inst = np.repeat(lv, sps) * (1800.0 / 3.0)
+    inst = np.convolve(inst, np.ones(sps // 2) / (sps // 2), mode="same")
+    iq = np.exp(2j * np.pi * np.cumsum(inst)
+                / (sps * 6000.0)).astype(np.complex64)
+    rng = np.random.default_rng(seed)
+    return iq + (rng.normal(size=iq.shape) + 1j * rng.normal(size=iq.shape)
+                 ).astype(np.complex64) * 10 ** (-30 / 20)
+
+
+def p2_cc_default_msgs(center_hz: float, grant_ch: int, tg: int,
+                       wacn: int, sysid: int):
+    """MAC message schedule for :func:`p2_cc_iq`: IDEN_UP TDMA, a group
+    voice grant and NET_STS in rotation."""
+    def msgs(sf, g):
+        if g % 4 == 1:
+            return [p2_mac_iden_up_tdma(1, center_hz, 6250.0)]
+        if g % 4 == 2:
+            return [p2_mac_group_grant(grant_ch, tg, 5555)]
+        return [p2_mac_net_sts(wacn, sysid)]
+    return msgs

@@ -36,7 +36,7 @@ class RuntimeConfig:
     p25_wd_ms: int = 250               # DSD_NEO_P25_WD_MS
     cc_cache_path: str = ""            # DSD_NEO_P25_CC_CACHE
     # device / batching
-    platform: str = "cpu"              # cpu|tpu|default
+    platform: str = "cpu"              # cpu|gpu|default
     channels: int = 1
     block_s: float = 1.0
     # audio

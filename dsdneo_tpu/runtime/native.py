@@ -10,6 +10,7 @@ the device-step loop — the reference's SPSC input ring
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,7 +20,18 @@ import numpy as np
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRCS = [os.path.join(_HERE, "native", "ingest_ring.cpp"),
          os.path.join(_HERE, "native", "audio_codec.cpp")]
-_SO = os.path.join(_HERE, "native", "libdsdneo_ingest.so")
+
+
+def _so_path() -> str:
+    """The library's path, named by a hash of its committed sources:
+    a binary built from other sources (a stale copy) is never loaded."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_HERE, "native",
+                        f"libdsdneo_ingest-{h.hexdigest()[:16]}.so")
+
 
 _lib = None
 _lock = threading.Lock()
@@ -27,13 +39,15 @@ _lock = threading.Lock()
 
 def build(force: bool = False) -> str:
     """Compile the native library if needed; returns the .so path."""
-    if force or not os.path.exists(_SO) or any(
-            os.path.getmtime(s) > os.path.getmtime(_SO) for s in _SRCS):
+    so = _so_path()
+    if force or not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-pthread",
-             "-o", _SO] + _SRCS,
+             "-o", tmp] + _SRCS,
             check=True)
-    return _SO
+        os.replace(tmp, so)          # concurrent builders: last one wins
+    return so
 
 
 def _load():

@@ -1,4 +1,4 @@
-"""Feed-forward symbol timing recovery (TPU-native design).
+"""Feed-forward symbol timing recovery (batched design).
 
 The reference recovers symbol timing with a per-sample feedback loop
 (src/dsp/dsd_symbol.c getSymbol: dynamic timing window with jitter

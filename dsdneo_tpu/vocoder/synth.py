@@ -17,8 +17,8 @@ Given per-frame (ω0, amplitudes[L], voiced[L]) parameter arrays, emits
                   synthesis contract, src/core/vocoder/dsd_mbe.c:199),
                   not a tonal line spectrum.
 
-The voiced product  cos(outer(n, l)) @ A  is an MXU-friendly [160, L]
-× [L] contraction; the unvoiced product is a [F, K] × [K, 160] matmul
+The voiced product  cos(outer(n, l)) @ A  is a [160, L] × [L]
+contraction; the unvoiced product is a [F, K] × [K, 160] matmul
 against a CONSTANT bin basis.  Replaces the external mbelib-neo
 synthesis (reference call contract src/core/vocoder/dsd_mbe.c).
 """
@@ -66,16 +66,23 @@ def synthesize_stream(w0: jax.Array, amps: jax.Array, voiced: jax.Array,
     # per-frame fundamental-phase increment with linear ω interpolation:
     # θ(n) = θ0 + Σ_{m<=n} ω(m),  ω(m) = ω_prev + (ω-ω_prev)(m+1)/N
     alpha = (n_idx + 1.0) / N                                   # [N]
-    w_t = w_prev[:, None] + (w0 - w_prev)[:, None] * alpha[None, :]  # [F,N]
-    cum = jnp.cumsum(w_t, axis=1)                               # [F,N]
-    frame_adv = cum[:, -1]                                      # [F]
-
-    theta0 = jnp.concatenate(
-        [jnp.zeros(1, jnp.float32),
-         jnp.cumsum(frame_adv[:-1])]) if F > 1 else jnp.zeros(F, jnp.float32)
-    theta0 = jnp.mod(theta_in + theta0, 2 * jnp.pi)
+    # closed form of the in-frame sum (no cumsum, whose summation order
+    # XLA picks per backend): Σ_{m<=n} ω(m) = (n+1)·ω_prev
+    #   + (ω-ω_prev)·(n+1)(n+2)/(2N)
+    ramp = (n_idx + 1.0) * (n_idx + 2.0) / (2.0 * N)            # [N]
+    cum = ((n_idx + 1.0)[None, :] * w_prev[:, None]
+           + (w0 - w_prev)[:, None] * ramp[None, :])            # [F,N]
+    # the frame-level sum wraps mod 2π at every step of a fixed scan
+    # tree, so the phase never grows to where a float32 ulp moves
+    # harmonic l by l·ulp(θ), and every backend adds in the same order
+    two_pi = jnp.float32(2 * np.pi)
+    frame_adv = jnp.mod(cum[:, -1], two_pi)                     # [F]
+    ends = jax.lax.associative_scan(
+        lambda x, y: jnp.mod(x + y, two_pi),
+        jnp.concatenate([jnp.mod(theta_in, two_pi)[None], frame_adv]))
+    theta0 = ends[:-1]                                          # [F]
     theta = theta0[:, None] + cum                               # [F,N]
-    theta_out = jnp.mod(theta_in + jnp.sum(frame_adv), 2 * jnp.pi)
+    theta_out = ends[-1]
 
     v = voiced > 0.5                                            # [F,L]
     P = jnp.where(v, 1.0, 0.0)       # voiced bands only; unvoiced
@@ -85,8 +92,7 @@ def synthesize_stream(w0: jax.Array, amps: jax.Array, voiced: jax.Array,
     # single transcendental pair (cosθ, sinθ): new_powers = powers ·
     # z^k doubles the bank per step, so the full [F, N, L] cos/sin
     # tables cost 6 complex-multiply passes instead of 2·F·N·L
-    # transcendental evaluations — the dominant cost of the batched
-    # voice chain on TPU.
+    # transcendental evaluations.
     pr = jnp.cos(theta)[:, :, None]                             # [F,N,1]
     pi = jnp.sin(theta)[:, :, None]
     while pr.shape[-1] < MAX_L:
@@ -99,9 +105,10 @@ def synthesize_stream(w0: jax.Array, amps: jax.Array, voiced: jax.Array,
 
     # wave_l = P_l·cos(lθ) (voiced bands), and the amplitude
     # interpolation a_t = a_prev·(1−α) + a·α is separable in n, so the
-    # harmonic sum reduces to two MXU contractions in one einsum:
+    # harmonic sum reduces to two contractions in one einsum:
     cc = jnp.stack([amps * P, a_prev * P], axis=-1)             # [F,L,2]
-    S = jnp.einsum("fnl,flk->fnk", pr, cc)                      # [F,N,2]
+    S = jnp.einsum("fnl,flk->fnk", pr, cc,
+                   precision=jax.lax.Precision.HIGHEST)         # [F,N,2]
     pcm = 2.0 * (alpha[None, :] * S[:, :, 0]
                  + (1.0 - alpha)[None, :] * S[:, :, 1])         # [F,N]
 
@@ -129,8 +136,10 @@ def synthesize_stream(w0: jax.Array, amps: jax.Array, voiced: jax.Array,
            + jnp.asarray((2.399963 * (kk // noise_phase.shape[1])
                           * (kk + 3)).astype(np.float32)))      # [F,K]
     # cos(ω_k n − φ_k) = cosφ·cos(ω_k n) + sinφ·sin(ω_k n)
-    pcm = pcm + ((c_k * jnp.cos(phi)) @ jnp.asarray(_BIN_COS)
-                 + (c_k * jnp.sin(phi)) @ jnp.asarray(_BIN_SIN))
+    pcm = pcm + (jnp.matmul(c_k * jnp.cos(phi), jnp.asarray(_BIN_COS),
+                            precision=jax.lax.Precision.HIGHEST)
+                 + jnp.matmul(c_k * jnp.sin(phi), jnp.asarray(_BIN_SIN),
+                              precision=jax.lax.Precision.HIGHEST))
     return pcm, theta_out, w0[-1], amps[-1]
 
 

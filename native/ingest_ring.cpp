@@ -1,6 +1,6 @@
 // SPDX-License-Identifier: MIT
 //
-// Native host-ingest runtime for the TPU decode pipeline:
+// Native host-ingest runtime for the batched decode pipeline:
 //   - lock-free SPSC byte ring with producer-drop accounting and
 //     generation counters for purge-on-retune (the reference keeps the
 //     same contract in include/dsd-neo/runtime/input_ring.h:22-70);

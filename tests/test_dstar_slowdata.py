@@ -28,7 +28,7 @@ def _decode(sd_bytes):
 def test_radio_text_message():
     sd = np.zeros(60, dtype=np.uint8)
     sd[0] = 0x40
-    msg = "HELLO FROM DSDNEO TPU"
+    msg = "HELLO FROM DSDNEO GPU"
     j = 0
     for i in range(1, 59):
         if i % 6 == 0:
@@ -38,7 +38,7 @@ def test_radio_text_message():
             j += 1
     line, ctx = _decode(sd)
     assert "SLOW DATA TEXT:" in line
-    assert "HELLO FROM DSDNEO TPU" in line
+    assert "HELLO FROM DSDNEO GPU" in line
     assert ctx.state.dstar_text.startswith("HELLO")
 
 

@@ -228,3 +228,20 @@ def test_cc_device_pick_equivalent_control_plane(wide):
     # voice rows decode the same stream (identical voice pipeline)
     for a, b in zip(pcm_h, pcm_d):
         np.testing.assert_array_equal(a, b)
+
+
+def test_cc_device_pick_partial_final_block(wide):
+    """The device CC pick compiles per block length: a shorter final
+    block (the CLI's last partial read) gets its own program and still
+    decodes the control channel."""
+    from dsdneo_tpu.engine.fleettrunk import TrunkedFleet
+    fleet = TrunkedFleet(FS, [CC_OFF], n_voice_rows=2, center_hz=CENTER,
+                         hangtime_s=5.0, grant_grace_s=0.5,
+                         cc_device_pick=True)
+    B = int(FS)
+    fleet.step(wide[:B])
+    assert fleet.stats.grants == 1
+    n_ev = len(fleet.cc_pipe.ctxs[0].events)
+    fleet.step(wide[B:B + B // 2])
+    assert len(fleet._ccbody_jits) == 2       # one program per length
+    assert len(fleet.cc_pipe.ctxs[0].events) > n_ev

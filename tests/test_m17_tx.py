@@ -56,7 +56,7 @@ def test_m17_lsf_frame_loopback():
 
 def test_m17_packet_loopback():
     from dsdneo_tpu.protocol.m17.encoder import encode_packet_transmission
-    msg = "Greetings from the TPU side of the house! " * 2
+    msg = "Greetings from the GPU side of the house! " * 2
     dibits = encode_packet_transmission("W1AW", "N0CALL", msg, can=2)
     ctx = _decode_dibits(dibits)
     text = "\n".join(e.line for e in ctx.events)

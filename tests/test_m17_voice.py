@@ -112,14 +112,14 @@ def test_m17_stream_voice_1600_with_adata():
     for i in range(6):
         frames[i, :64] = enc.encode_bits(pcm[320 * i:320 * (i + 1)])
     frames[0, 64:] = np.unpackbits(
-        np.frombuffer(b"hi tpu!\x00", dtype=np.uint8))
+        np.frombuffer(b"hi gpu!\x00", dtype=np.uint8))
     dibits = encode_stream_transmission("BROADCAST", "N0CALL", frames, dt=3)
     ctx = _decode_dibits(dibits)
     got = np.concatenate(ctx.audio[0])
     _assert_voice_match(got, _expected_pcm(frames, c2.MODE_1600))
     text = "\n".join(e.line for e in ctx.events)
     assert "Voice (1600bps)" in text
-    assert "A_DATA: hi tpu!" in text
+    assert "A_DATA: hi gpu!" in text
 
 
 def test_m17_scrambler_stream_decrypts_with_key():
@@ -209,7 +209,7 @@ def test_lsf_meta_text_assembly():
     from dsdneo_tpu.protocol.m17.decoder import M17Decoder
 
     dec = M17Decoder()
-    msg = "HELLO M17 FROM THE TPU SIDE"
+    msg = "HELLO M17 FROM THE GPU SIDE"
     blocks = [msg[i * 13:(i + 1) * 13].ljust(13) for i in range(2)]
     m1 = np.zeros(14, dtype=np.uint8)
     m1[0] = (0x3 << 4) | 0x1
@@ -220,4 +220,4 @@ def test_lsf_meta_text_assembly():
     out1 = dec._meta_text_block(m1)
     assert "Meta Text Block 1/2" in out1
     out2 = dec._meta_text_block(m2)
-    assert "Meta Text Data: HELLO M17 FROM THE TPU SID" in out2
+    assert "Meta Text Data: HELLO M17 FROM THE GPU SID" in out2

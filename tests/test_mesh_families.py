@@ -1,4 +1,4 @@
-"""Sharded multi-chip family programs (SURVEY §2.8 TPU mapping): the
+"""Sharded multi-device family programs (SURVEY §2.8 mapping): the
 DMR voice, P25p2 voice, and P25p1 control-channel chains each run as
 ONE SPMD program under shard_map over a channel mesh, decoding real
 (synthesized / fixture) signals — not just the dryrun's noise."""

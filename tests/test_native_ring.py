@@ -189,3 +189,24 @@ def test_ring_widen_timeout_consumes_nothing():
     assert abs(out[0, 0] - exp_i) < 1e-6 and abs(out[0, 1] - exp_q) < 1e-6
     assert r.fill == 0
     r.close()
+
+
+def test_library_named_by_source_hash(tmp_path, monkeypatch):
+    """The built library's name carries a hash of the committed C++
+    sources: an edited source gets a fresh build, and a stale binary
+    copied in from elsewhere is never loaded under the new name."""
+    import os
+
+    from dsdneo_tpu.runtime import native
+    srcs = []
+    for src in native._SRCS:
+        dst = tmp_path / os.path.basename(src)
+        dst.write_bytes(open(src, "rb").read())
+        srcs.append(str(dst))
+    monkeypatch.setattr(native, "_SRCS", srcs)
+    before = native._so_path()
+    assert os.path.basename(before).startswith("libdsdneo_ingest-")
+    assert native._so_path() == before
+    with open(srcs[1], "a") as f:
+        f.write("\n// edited\n")
+    assert native._so_path() != before

@@ -16,17 +16,7 @@ TG = 101
 
 def _cc_iq(n_sf=3, msgs=None, wacn=WACN, sysid=SYSID, nac=NAC, seed=0):
     from dsdneo_tpu.protocol.p25 import encode as E
-    dib = E.p2_cc_superframes(n_sf, wacn, sysid, nac, msgs)
-    sps = 8
-    lv = np.array([1.0, 3.0, -1.0, -3.0])[dib]
-    inst = np.repeat(lv, sps) * (1800.0 / 3.0)
-    inst = np.convolve(inst, np.ones(sps // 2) / (sps // 2), mode="same")
-    iq = np.exp(2j * np.pi * np.cumsum(inst)
-                / (sps * 6000.0)).astype(np.complex64)
-    rng = np.random.default_rng(seed)
-    iq = iq + (rng.normal(size=iq.shape) + 1j * rng.normal(size=iq.shape)
-               ).astype(np.complex64) * 10 ** (-30 / 20)
-    return iq
+    return E.p2_cc_iq(n_sf, msgs, wacn, sysid, nac, seed)
 
 
 def _planes(blk):
@@ -35,14 +25,7 @@ def _planes(blk):
 
 def _default_msgs():
     from dsdneo_tpu.protocol.p25 import encode as E
-
-    def msgs(sf, g):
-        if g % 4 == 1:
-            return [E.p2_mac_iden_up_tdma(1, CENTER, 6250.0)]
-        if g % 4 == 2:
-            return [E.p2_mac_group_grant(GRANT_CH, TG, 5555)]
-        return [E.p2_mac_net_sts(WACN, SYSID)]
-    return msgs
+    return E.p2_cc_default_msgs(CENTER, GRANT_CH, TG, WACN, SYSID)
 
 
 def test_encode_matrix_matches_rs_encode():

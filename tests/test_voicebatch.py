@@ -57,7 +57,7 @@ def test_pipeline_matches_event_decoder_on_fixture():
     iq = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
     iq = np.broadcast_to(iq[None], (C,) + iq.shape).copy()
     pipe = BatchedP25VoicePipeline(C)
-    dib_j, soft_j, _ = pipe.frontend(iq, use_pallas=False)
+    dib_j, soft_j, _ = pipe.frontend(iq)
     dib, soft = np.asarray(dib_j), np.asarray(soft_j)
 
     # event-driven decode over the same stream (channel 0)

@@ -3,7 +3,7 @@ import sys, time
 sys.path.insert(0, "/root/repo")
 import numpy as np, jax, jax.numpy as jnp
 import bench
-bench._enable_compile_cache()
+bench.enable_compile_cache()
 from dsdneo_tpu.engine.ccbatch import (BatchedP25ControlPipeline,
                                        p25_tsdu_decode_device)
 from dsdneo_tpu.io import read_iq_capture

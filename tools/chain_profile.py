@@ -3,15 +3,14 @@ import sys, time
 sys.path.insert(0, "/root/repo")
 import numpy as np, jax, jax.numpy as jnp
 import bench
-bench._enable_compile_cache()
+bench.enable_compile_cache()
 from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
 from dsdneo_tpu.vocoder.device import voice_decode_device
-from dsdneo_tpu.io import read_iq_capture
-meta, samples = read_iq_capture(bench.FIXTURE)
+fs, samples = bench.headline_capture()
 iq1 = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
 C = int(sys.argv[1]) if len(sys.argv) > 1 else 192
 x = jax.device_put(np.broadcast_to(iq1[None], (C,) + iq1.shape).copy())
-pipe = BatchedP25VoicePipeline(C, fs=float(meta.sample_rate_hz))
+pipe = BatchedP25VoicePipeline(C, fs=fs)
 pipe.decode_block(x)
 for rep in range(3):
     t = {}

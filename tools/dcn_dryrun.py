@@ -1,6 +1,6 @@
 """Two-process DCN dryrun: the multi-HOST axis of the scaling story.
 
-The ICI story shards channels over one host's chips
+The single-host story shards channels over one host's devices
 (parallel.mesh.make_sharded_*); scaling past a host means a second
 process joined via jax.distributed, with the same channel-sharded SPMD
 program now spanning both processes' devices — collectives between

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 import bench
 
-bench._enable_compile_cache()
+bench.enable_compile_cache()
 from dsdneo_tpu.engine.nxdnbatch import BatchedNxdnVoicePipeline
 from dsdneo_tpu.io import read_iq_capture
 

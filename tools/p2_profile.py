@@ -3,7 +3,7 @@ import sys, time
 sys.path.insert(0, "/root/repo")
 import numpy as np, jax, jax.numpy as jnp
 import bench
-bench._enable_compile_cache()
+bench.enable_compile_cache()
 from dsdneo_tpu.engine.p2batch import (BatchedP2VoicePipeline,
                                        synth_p2_voice_stream)
 

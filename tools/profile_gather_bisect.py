@@ -14,17 +14,15 @@ import bench  # noqa: E402
 
 
 def main():
-    bench._enable_compile_cache()
+    bench.enable_compile_cache()
     import jax
     import jax.numpy as jnp
     from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
-    from dsdneo_tpu.io import read_iq_capture
     from dsdneo_tpu.vocoder import device as vd
     from dsdneo_tpu.vocoder import imbe
 
     C = 320
-    meta, samples = read_iq_capture(bench.FIXTURE)
-    fs = float(meta.sample_rate_hz)
+    fs, samples = bench.headline_capture()
     iq1 = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
     iq = np.broadcast_to(iq1[None], (C,) + iq1.shape).copy()
     pipe = BatchedP25VoicePipeline(C, fs=fs, pcm_fmt="mulaw")

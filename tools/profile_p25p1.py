@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Stage profile of the P25p1 batched chain at C=320 on the TPU."""
+"""Stage profile of the P25p1 batched chain at C=320 on the default
+JAX device."""
 
 import os
 import sys
@@ -12,15 +13,13 @@ import bench  # noqa: E402
 
 
 def main():
-    bench._enable_compile_cache()
+    bench.enable_compile_cache()
     import jax
     from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
-    from dsdneo_tpu.io import read_iq_capture
     from dsdneo_tpu.vocoder.device import voice_decode_gather
 
     C = 320
-    meta, samples = read_iq_capture(bench.FIXTURE)
-    fs = float(meta.sample_rate_hz)
+    fs, samples = bench.headline_capture()
     iq1 = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
     iq = np.broadcast_to(iq1[None], (C,) + iq1.shape).copy()
     pipe = BatchedP25VoicePipeline(C, fs=fs, pcm_fmt="mulaw")
@@ -70,14 +69,12 @@ if __name__ == "__main__" and "--gather" not in sys.argv:
 
 
 def gather_only():
-    bench._enable_compile_cache()
+    bench.enable_compile_cache()
     import jax
     from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
-    from dsdneo_tpu.io import read_iq_capture
 
     C = 320
-    meta, samples = read_iq_capture(bench.FIXTURE)
-    fs = float(meta.sample_rate_hz)
+    fs, samples = bench.headline_capture()
     iq1 = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
     iq = np.broadcast_to(iq1[None], (C,) + iq1.shape).copy()
     pipe = BatchedP25VoicePipeline(C, fs=fs, pcm_fmt="mulaw")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the PCM wire formats on the real TPU: P25p2 + DMR + P25p1
+"""Profile the PCM wire formats on the default JAX device: P25p2 + DMR + P25p1
 chains at C=320, mulaw vs adpcm step time (bench.py configurations)."""
 
 import os
@@ -9,7 +9,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import bench  # noqa: E402  (reuses _enable_compile_cache + bench fns)
+import bench  # noqa: E402  (reuses enable_compile_cache + bench fns)
 
 
 def time_pipe(pipe, x, reps=4):
@@ -30,7 +30,7 @@ def time_pipe(pipe, x, reps=4):
 
 
 def main():
-    bench._enable_compile_cache()
+    bench.enable_compile_cache()
     import jax
     print("backend:", jax.default_backend(), flush=True)
     C = 320
@@ -47,8 +47,6 @@ def main():
         dt, nbytes, shp = time_pipe(pipe, x)
         print(f"p25p2 {fmt}: step {dt*1e3:.0f} ms  x{C*block_s/dt:.0f}"
               f"  fetch {nbytes/1e6:.1f} MB  pcm {shp}", flush=True)
-
-    from dsdneo_tpu.io import read_iq_capture
     from dsdneo_tpu.engine.dmrbatch import (BatchedDmrVoicePipeline,
                                             synth_voice_stream)
     s2 = synth_voice_stream(n_superframes=8, seed=1)[0]
@@ -63,8 +61,7 @@ def main():
               f"  fetch {nbytes/1e6:.1f} MB  pcm {shp}", flush=True)
 
     from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
-    meta, samples = read_iq_capture(bench.FIXTURE)
-    fs = float(meta.sample_rate_hz)
+    fs, samples = bench.headline_capture()
     iq1 = np.stack([samples.real, samples.imag], axis=-1).astype(np.float32)
     iq = np.broadcast_to(iq1[None], (C,) + iq1.shape).copy()
     block_s = iq1.shape[0] / fs
